@@ -1,11 +1,11 @@
-"""filter_functions_tpu -- a TPU-native JAX framework for computing
-generalized filter functions of quantum control pulses.
+"""filter_functions_tpu -- a JAX framework for computing generalized
+filter functions of quantum control pulses on accelerators.
 
 A from-scratch rebuild of the capabilities of qutech/filter_functions
-(reference mounted at /root/reference) designed for TPU hardware:
+(the NumPy reference package) for jit-compiled, batched evaluation:
 
-* all complex linear algebra runs on a split (re, im) float64
-  representation (:mod:`.cplx`) because TPU backends lack complex128;
+* complex linear algebra runs on a split (re, im) float64
+  representation (:mod:`.cplx`);
 * propagator accumulation uses log-depth associative scans;
 * the control-matrix segment loop is a batched XLA contraction;
 * the trace-tensor contractions for the cumulant function use Pauli

@@ -1,4 +1,4 @@
-"""Operator bases (TPU-native rebuild of the reference ``basis`` module,
+"""Operator bases (JAX rebuild of the reference ``basis`` module,
 /root/reference/filter_functions/basis.py).
 
 Differences from the reference:
@@ -13,7 +13,7 @@ Differences from the reference:
   elements is a single element times a phase, so every contraction with
   the trace tensor becomes a segment-sum + gather -- O(n^2) instead of
   the reference's O(n^3) sparse contraction, and entirely dense-array
-  based (TPU friendly).  A dense trace tensor is still available for
+  based.  A dense trace tensor is still available for
   small dimensions (tests, custom bases).
 """
 from __future__ import annotations
@@ -235,8 +235,8 @@ class Basis:
     @property
     def sparse(self) -> np.ndarray:
         """Host array view of the basis (API compatibility with the
-        reference's COO property, basis.py:325-328).  On TPU, sparse
-        formats buy nothing -- the trace-tensor contractions use
+        reference's COO property, basis.py:325-328).  Sparse formats
+        buy nothing here -- the trace-tensor contractions use
         structure constants / streamed dense contractions instead -- so
         this simply returns the dense host array."""
         return self._np

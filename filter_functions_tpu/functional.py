@@ -117,8 +117,8 @@ def error_transfer_matrix(p: PulseArrays, spectrum, omega, basis: Basis,
 def _so_shift_dtype() -> Optional[str]:
     """Working precision of the second-order frequency-shift term.
 
-    float32 on the Ozaki/TPU path (where f64 contractions are
-    software-emulated and slow), full precision elsewhere.  Since the
+    float32 in 'ozaki' contraction mode, full precision otherwise.
+    Since the
     separable-table rewrite of the K2 lattice
     (numeric._second_order_diag_shifts), float32's rounding is NOT
     amplified near resonances: entries with |y dt| < _SO_SMALL_Y take
@@ -213,8 +213,8 @@ def batched_error_transfer_matrix(p: PulseArrays, spectrum, omega,
         # Device-resident real diagonal spectrum: pass through without
         # the host round trip np.asarray would force (production
         # callers stage the loop-constant spectrum once; re-fetching
-        # and re-uploading it every call costs two transfer rounds on
-        # a tunneled backend).  Shape errors surface at trace time.
+        # and re-uploading it every call costs two transfers).  Shape
+        # errors surface at trace time.
         s = jnp.broadcast_to(spectrum, (n_nops,) * (2 - spectrum.ndim)
                              + spectrum.shape)
         s_im = None
@@ -245,7 +245,7 @@ def _etm_batched(p: PulseArrays, s, s_im, omega, tg, td,
 
 def _infid_prep(p: PulseArrays, c_coeffs, n_coeffs, dt, omega):
     """Diagonalization + per-segment K4 ingredients of one pulse (the
-    VPU-heavy front of the infidelity pipeline)."""
+    elementwise-heavy front of the infidelity pipeline)."""
     from . import config
     ham = ceinsum('jmn,jg->gmn', p.c_opers, c_coeffs)
     eigvals, eigvecs, propagators = numeric._diagonalize_jit(ham, dt)
@@ -259,7 +259,7 @@ def _infid_prep(p: PulseArrays, c_coeffs, n_coeffs, dt, omega):
 
 def _infid_contract(terms, spectrum, omega, d: int,
                     escalation: str = 'auto'):
-    """Control-matrix contraction + spectral integral (the MXU-heavy
+    """Control-matrix contraction + spectral integral (the matmul-heavy
     back of the infidelity pipeline); matches :func:`infidelity`.
 
     With ``escalation='stat'`` returns ``(infidelity, ratio)`` where
@@ -298,8 +298,9 @@ def batched_infidelity(p: PulseArrays, spectrum: jnp.ndarray,
     n_coeffs / dt (shared operators and basis).
 
     ``vmap`` hoists the per-pulse omega-lattice workspaces for the whole
-    batch into HBM at once (~1 GiB/pulse for the d=16, 1000-frequency
-    flagship); pass ``chunk_size`` to evaluate the batch in sequential
+    batch into device memory at once (~0.5 GiB/pulse for the d=16,
+    1000-frequency flagship); pass ``chunk_size`` to evaluate the batch
+    in sequential
     chunks of that many vmapped pulses, bounding peak memory at
     ~2 x chunk_size pulses with no accuracy impact.  The batch must
     divide evenly into chunks.
@@ -307,11 +308,9 @@ def batched_infidelity(p: PulseArrays, spectrum: jnp.ndarray,
     The chunked path is SOFTWARE-PIPELINED: a skewed ``lax.scan``
     carries chunk i's contraction inputs and computes them concurrently
     with chunk i+1's preparation, so each scan body offers the
-    scheduler independent MXU work (the Ozaki slice matmuls) and VPU
-    work (diagonalization, transforms, integral tables, digit
-    slicing).  Values are bit-identical to the naive serial chunking;
-    measured 11.23 -> 10.97 ms/pulse on the flagship
-    (scripts/exp_pipeline.py).
+    scheduler independent matmul work (the contraction) and
+    elementwise work (diagonalization, transforms, integral tables).
+    Values are bit-identical to the naive serial chunking.
 
     Precision escalation is decided OUTSIDE the vmap: the fast pass
     collects each pulse's cancellation statistic
@@ -319,8 +318,8 @@ def batched_infidelity(p: PulseArrays, spectrum: jnp.ndarray,
     batch maximum re-runs the whole batch at full precision only when
     some pulse predicts a parity breach.  (Leaving the reference cond
     inside the vmapped contraction lowers it to a both-branches
-    ``select`` -- every healthy call then pays the escalated recompute,
-    the round-4 flagship regression.)
+    ``select`` -- every healthy call then pays the escalated
+    recompute.)
 
     Output shape (batch, n_nops)."""
     batch = p.c_coeffs.shape[0]
@@ -350,8 +349,8 @@ def batched_infidelity(p: PulseArrays, spectrum: jnp.ndarray,
         carry0 = vprep(parts[0][0], parts[1][0], parts[2][0])
 
         def body(carry, xs):
-            out = vcontract(carry)           # chunk i   (MXU-heavy)
-            new = vprep(*xs)                 # chunk i+1 (VPU-heavy)
+            out = vcontract(carry)           # chunk i   (matmuls)
+            new = vprep(*xs)                 # chunk i+1 (elementwise)
             return new, out
 
         last, outs = jax.lax.scan(body, carry0,

@@ -1,4 +1,4 @@
-"""Analytic filter-function and infidelity derivatives (TPU-native
+"""Analytic filter-function and infidelity derivatives (JAX
 rebuild of /root/reference/filter_functions/gradient.py; formalism from
 Le et al., PRApplied 17, 024006 (2022)).
 

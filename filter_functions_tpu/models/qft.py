@@ -4,8 +4,8 @@ Implements the simplified QFT of Ivanov, Johanning & Wunderlich,
 arXiv:1503.08806 (the reference's benchmark example,
 /root/reference/examples/qft.py), built from plain Pauli tensor
 products -- no qutip dependency.  The 4-qubit instance (d = 16) at
-1000 frequencies is the driver-defined performance north star
-(/root/repo/BASELINE.json).
+1000 frequencies is the performance north star (BASELINE.json;
+:func:`qft_batch` builds that workload).
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ from ..basis import Basis
 from ..pulse_sequence import PulseSequence
 from ..sequencing import concatenate
 
-__all__ = ['qft_pulse', 'r_k_pulse', 'h_k_pulse', 't_i_pulse',
-           't_f_pulse', 'p_n_pulse']
+__all__ = ['qft_pulse', 'qft_batch', 'r_k_pulse', 'h_k_pulse',
+           't_i_pulse', 't_f_pulse', 'p_n_pulse']
 
 _I, _X, _Y, _Z = util.paulis
 
@@ -126,6 +126,36 @@ def qft_pulse(n_qubits: int = 4, tau: float = 1.0,
     pulses.append(h_k_pulse(n_qubits - 1, n_qubits, tau, basis))
     pulses.append(t_f_pulse(n_qubits, tau, basis))
     return concatenate(pulses)
+
+
+def qft_batch(n_qubits: int = 4, n_omega: int = 1000, batch: int = 32,
+              seed: int = 0):
+    """The flagship workload: the QFT pulse and a batch of its
+    variants for :func:`~filter_functions_tpu.functional.batched_infidelity`
+    (row 0 the pulse itself, the others with seeded 5% control-amplitude
+    scatter, as an optimal-control population), at *n_omega*
+    log-spaced frequencies in [1e-2, 1e2] with a 1e-4/omega spectrum.
+
+    Returns ``(pulse, batched PulseArrays, omega, spectrum)``; omega and
+    spectrum are numpy arrays.
+    """
+    import jax.numpy as jnp
+    from ..functional import PulseArrays, make_pulse_arrays
+
+    pulse = qft_pulse(n_qubits)
+    p = make_pulse_arrays(pulse)
+    scales = 1 + 0.05 * np.random.default_rng(seed).standard_normal(
+        (batch, 1, 1))
+    scales[0] = 1.0
+    c_coeffs = np.asarray(p.c_coeffs)
+    n_coeffs = np.asarray(p.n_coeffs)
+    dt = np.asarray(p.dt)
+    batched = PulseArrays(
+        p.c_opers, jnp.asarray(c_coeffs[None] * scales), p.n_opers,
+        jnp.asarray(np.broadcast_to(n_coeffs, (batch,) + n_coeffs.shape)),
+        jnp.asarray(np.broadcast_to(dt, (batch,) + dt.shape)), p.basis)
+    omega = np.geomspace(1e-2, 1e2, n_omega)
+    return pulse, batched, omega, 1e-4 / omega
 
 
 def qft_propagator(n_qubits: int) -> np.ndarray:

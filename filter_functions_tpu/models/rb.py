@@ -137,7 +137,7 @@ def rb_pulse(indices: Sequence[int], recovery: int,
 
 
 # -----------------------------------------------------------------------------
-# Batched (TPU-native) randomized benchmarking
+# Batched randomized benchmarking
 # -----------------------------------------------------------------------------
 def clifford_control_arrays(tau: float = 1.0):
     """Control coefficient / duration arrays of all 24 Cliffords, zero-
@@ -166,7 +166,7 @@ def clifford_control_arrays(tau: float = 1.0):
 
 def batched_rb_infidelities(indices, omega, spectrum, tau: float = 1.0):
     """Dephasing infidelities of many Clifford sequences in ONE jitted,
-    batched evaluation -- the TPU-native replacement for the
+    batched evaluation -- the device replacement for the
     reference's per-sequence ``concatenate`` loop with cached control
     matrices (/root/reference/examples/randomized_benchmarking.py).
 
@@ -244,7 +244,7 @@ def _rb_run(ctrl, liou, indices, omega, spectrum, tau: float):
     time).
 
     The concatenation sum B = sum_g e^{i w t_{g-1}} B^(g) Q^(g-1)
-    (K5, reference numeric.py:621-704) runs as ONE batched MXU matmul
+    (K5, reference numeric.py:621-704) runs as ONE batched matmul
     per sequence with the (segment, basis) pair as reduction axis;
     the cumulative Liouville transfer matrices Q are real (unitary
     PTMs), so the product needs two real matmuls, not a complex one.

@@ -1,8 +1,8 @@
-"""Low-level TPU compute primitives.
+"""Low-level compute primitives.
 
-* :mod:`.ozaki` -- high-precision matrix multiplication on the MXU via
-  the Ozaki splitting scheme (exact bf16-slice products with f32
-  accumulation, recombined in f64).
+* :mod:`.ozaki` -- high-precision matrix multiplication via the Ozaki
+  splitting scheme (exact int8- or bf16-slice products, recombined in
+  f64); the ``FF_TPU_CONTRACT=ozaki`` contraction mode.
 """
 from . import ozaki
 

@@ -1,8 +1,8 @@
-r"""Near-f64 matrix multiplication on the MXU via Ozaki splitting.
+r"""Near-f64 matrix multiplication from low-precision products via
+Ozaki splitting.
 
-TPU v5e has no native float64 ALU; XLA emulates f64 matmuls in scalar
-software at ~0.3-0.5 TFLOP/s, while the MXU delivers orders of
-magnitude more on bf16 inputs with f32 accumulation.  The Ozaki scheme
+Integer and bf16 matrix units deliver far more throughput than float64
+arithmetic on most accelerators.  The Ozaki scheme
 (Ozaki et al., Numer. Algorithms 59, 2012; the basis of "DGEMM on
 tensor cores" work on GPUs) recovers high precision from low-precision
 matmuls using an error-free fixed-point decomposition:
@@ -15,7 +15,7 @@ matmuls using an error-free fixed-point decomposition:
 3. a slice product carries ``2*slice_bits`` bits and a K-deep
    accumulation adds ``log2 K`` more; with
    ``2*slice_bits + ceil(log2 K) <= 24`` every pairwise slice matmul
-   ``A_i @ B_j`` is **exact** in the MXU's f32 accumulator;
+   ``A_i @ B_j`` is **exact** in the f32 accumulator;
 4. recombine ``sum_{i+j <= L} 2^{-slice_bits (i+j)} (A_i @ B_j)`` in
    f64 with the row/column scales.
 
@@ -24,10 +24,10 @@ The slice width therefore adapts to the reduction depth:
 bits up to K = 4096, ...).  ``precision_bits`` selects the truncation
 level L: the neglected pairs contribute < 2^-precision_bits relative
 to the row*column magnitude.  The default is depth-adaptive: 30 bits
-in general (measured flagship parity 4.9e-13), 24 bits for the
-deep-reduction control-matrix contraction (K > 1024) where the
-many-sample frequency integral averages the truncation noise
-(measured flagship infidelity parity 8.3e-11 at -13% runtime);
+in general, 24 bits for the deep-reduction control-matrix contraction
+(K > 1024) where the many-sample frequency integral averages the
+truncation noise (flagship infidelity parity ~5e-12; ~1e-10 with the
+factored D of config.ozaki_factored);
 FF_TPU_OZAKI_BITS / FF_TPU_OZAKI_BITS_DEEP override either level.
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ DEFAULT_PRECISION_BITS = int(os.environ.get('FF_TPU_OZAKI_BITS', '30'))
 #: Truncation level of the DEEP-reduction control-matrix contraction
 #: (K > 1024: large-d pulses / long trains, whose results feed
 #: many-sample frequency integrals that average the truncation noise;
-#: measured flagship infidelity parity 8.3e-11).  Shallow contractions
+#: flagship infidelity parity ~5e-12).  Shallow contractions
 #: keep DEFAULT_PRECISION_BITS (raw small-d filter functions stay at
 #: reference-level parity).  Override with FF_TPU_OZAKI_BITS_DEEP.
 DEEP_PRECISION_BITS = int(os.environ.get('FF_TPU_OZAKI_BITS_DEEP',
@@ -59,17 +59,17 @@ _ACC_BITS = 24
 #: bf16 holds integers up to 2^8 exactly.
 _MAX_SLICE_BITS = 8
 #: int8 digit width: 7-bit digits keep every K <= 2^17 slice product
-#: sum exactly inside the MXU's int32 accumulator.
+#: sum exactly inside the int32 accumulator.
 _INT8_SLICE_BITS = 7
 
 
 def _mxu_mode() -> str:
-    """MXU element type for the slice products: 'int8' (7-bit digits,
-    *exact* int32 accumulation, ~2.8x the bf16 matmul throughput on
-    v5e-class chips) or 'bf16' (6-8-bit digits, exact f32
-    accumulation).  Read eagerly per public call and passed down as a
-    static argument (like FF_TPU_OZAKI_CMUL); inside a user jit the
-    value is baked in at trace time.  Override with FF_TPU_OZAKI_MXU.
+    """Element type of the slice products: 'int8' (7-bit digits,
+    *exact* int32 accumulation, integer tensor-core GEMMs) or 'bf16'
+    (6-8-bit digits, exact f32 accumulation).  Read eagerly per public
+    call and passed down as a static argument (like FF_TPU_OZAKI_CMUL);
+    inside a user jit the value is baked in at trace time.  Override
+    with FF_TPU_OZAKI_MXU.
     """
     return os.environ.get('FF_TPU_OZAKI_MXU', 'int8')
 
@@ -82,8 +82,8 @@ def _slice_fixed_point(x: jnp.ndarray, axis: int, n_slices: int,
     Digit extraction runs in native integer arithmetic when the total
     digit width fits an int32/int64: one exact f64 multiply+round to a
     fixed-point integer, then shift/mask per digit.  The float cascade
-    (round, subtract, scale per digit) costs ~3 software-emulated f64
-    passes per digit on TPU and is kept only as the wide fallback.
+    (round, subtract, scale per digit) costs ~3 f64 passes per digit
+    and is kept only as the wide fallback.
 
     int8 digits reserve ONE headroom bit (the scale is doubled): the
     round-half-up peel bounds every digit below the top one by
@@ -102,12 +102,11 @@ def _slice_fixed_point(x: jnp.ndarray, axis: int, n_slices: int,
     total_bits = n_slices * slice_bits
     if x.dtype == jnp.float32:
         # f32 inputs take the float cascade below: every step is
-        # native VPU work AND exact (scaling by powers of two keeps
+        # native f32 work AND exact (scaling by powers of two keeps
         # the mantissa; the subtraction y - round(y) retains only
         # low-order mantissa bits), so the digits reconstruct the f32
         # value exactly -- whereas the int path would route a >30-bit
-        # window through software-emulated int64 shifts (measured
-        # 1.2 ms of the flagship's P slicing).
+        # window through int64 shifts.
         int_dtype = None
     elif total_bits <= 30:
         int_dtype = jnp.int32
@@ -120,9 +119,7 @@ def _slice_fixed_point(x: jnp.ndarray, axis: int, n_slices: int,
         # |x / 2^(exp - slice_bits)| <= 2^slice_bits, so
         # z = round(x * 2^(bits * n - exp)) fits total_bits + 1 bits
         # (exact in f64 for total_bits <= 52).  ONE fused
-        # multiply-by-power-of-two per element -- emulated-f64
-        # elementwise work is the slicing bottleneck on TPU (an
-        # emulated divide would cost several times more again).
+        # multiply-by-power-of-two per element (no divide).
         z = jnp.round(
             x * jnp.exp2(jnp.asarray(slice_bits * n_slices, x.dtype)
                          - exp)).astype(int_dtype)
@@ -148,7 +145,7 @@ def _slice_fixed_point(x: jnp.ndarray, axis: int, n_slices: int,
 def ozaki_matmul(a: jnp.ndarray, b: jnp.ndarray,
                  precision_bits: int = DEFAULT_PRECISION_BITS
                  ) -> jnp.ndarray:
-    """High-precision ``a @ b`` on the MXU via Ozaki splitting.
+    """High-precision ``a @ b`` via Ozaki splitting.
 
     a: (..., M, K) float64, b: (..., K, N) float64; leading batch axes
     must match.  Relative truncation ~2^-precision_bits of the
@@ -224,7 +221,7 @@ def _slice_params(K: int, precision_bits: int,
 
 def _recomb_mode() -> str:
     """How the int8 path widens and sums its per-level int32 outputs:
-    'ds' (default) double-single two-float32 arithmetic on the VPU,
+    'ds' (default) double-single two-float32 arithmetic,
     'f64' emulated-f64 widening per level.  Override with
     FF_TPU_OZAKI_RECOMB.  Read eagerly per public call and passed down
     as a static argument (like FF_TPU_OZAKI_MXU), so toggling the env
@@ -243,7 +240,7 @@ def _ds_from_int32(v: jnp.ndarray):
 
 def _ds_add(a, b):
     """Two-float Knuth/Dekker addition: (ah, al) + (bh, bl) with
-    ~2^-48 relative error, all in native f32 VPU ops."""
+    ~2^-48 relative error, all in native f32 ops."""
     ah, al = a
     bh, bl = b
     s = ah + bh
@@ -256,17 +253,14 @@ def _ds_add(a, b):
 
 def _matmul_from_slices(a_sl, b_sl, slice_bits: int, ndim: int,
                         recomb: str = 'f64'):
-    """sum_{i+j <= L} 2^{-slice_bits (i+j)} A_i @ B_j on the MXU.
+    """sum_{i+j <= L} 2^{-slice_bits (i+j)} A_i @ B_j.
 
     bf16 digits accumulate exactly in f32 and widen to f64 per product;
     int8 digits accumulate exactly in *int32* and whole levels sum in
-    native int32.  (Collapsing each level to a single K-concatenated
-    matmul was measured SLOWER -- 18.0 vs 15.4 ms/pulse on the
-    flagship -- the int8 concat materialization costs more than XLA's
-    dispatch of the separate pair products.)
+    native int32.
 
     The cross-level recombination sum_s 2^{-slice_bits s} L_s is the
-    dominant non-MXU cost of the int8 path when done in emulated f64
+    dominant non-matmul cost of the int8 path when done in f64
     (n_slices full-size widen+scale+add sweeps per Gauss component).
     Mode 'ds' (default, :func:`_recomb_mode`) runs it in double-single
     two-float32 arithmetic instead: the int32 -> (hi, lo) f32 split is
@@ -274,7 +268,7 @@ def _matmul_from_slices(a_sl, b_sl, slice_bits: int, ndim: int,
     exponent shifts), and the two-float adds keep ~48 result bits --
     well beyond the <= 31 bits a level sum carries -- so the single
     final f64 widening reproduces the f64-path result to ~2^-48
-    relative, at native f32 VPU speed."""
+    relative, at native f32 speed."""
     n_slices = len(a_sl)
     int8 = a_sl[0].dtype == jnp.int8
     acc_t = jnp.int32 if int8 else jnp.float32
@@ -347,7 +341,7 @@ def ozaki_matmul_c(a_re, a_im, b_re, b_im,
     slicing each real component ONCE and reusing the decompositions
     across the three products.  Calling :func:`ozaki_matmul` three times
     (as a naive Gauss would) re-slices every operand per product; the
-    slicing is f64-elementwise-bound on TPU and dominates for large N.
+    slicing is f64-elementwise-bound and dominates for large N.
 
     Returns (re, im) of shape (..., M, N).
     """
@@ -400,33 +394,35 @@ def _ozaki_matmul_c_impl(a_re, a_im, b_re, b_im,
     def sl_b(x):
         return _slice_fixed_point(x, -2, n_slices, slice_bits, mxu)
 
-    ar_sl, ar_sc = sl_a(a_re)
-    ai_sl, ai_sc = sl_a(a_im)
-    br_sl, br_sc = sl_b(b_re)
-    bi_sl, bi_sc = sl_b(b_im)
+    with jax.named_scope('ozaki_a_digits'):
+        ar_sl, ar_sc = sl_a(a_re)
+        ai_sl, ai_sc = sl_a(a_im)
+    with jax.named_scope('ozaki_b_digits'):
+        br_sl, br_sc = sl_b(b_re)
+        bi_sl, bi_sc = sl_b(b_im)
+
+    def mm(a_sl, a_sc, b_sl, b_sc):
+        with jax.named_scope('ozaki_slice_matmuls'):
+            return _matmul_from_slices(a_sl, b_sl, slice_bits, ndim,
+                                       recomb) * (a_sc * b_sc)
 
     if cmul == '4':
         # 4-multiplication form: one fewer slicing of each operand
         # (the f64-elementwise-bound step) at the cost of one more
-        # bf16 matmul set (the cheap MXU step).
-        p_rr = _matmul_from_slices(ar_sl, br_sl, slice_bits, ndim,
-                                   recomb) * (ar_sc * br_sc)
-        p_ii = _matmul_from_slices(ai_sl, bi_sl, slice_bits, ndim,
-                                   recomb) * (ai_sc * bi_sc)
-        p_ri = _matmul_from_slices(ar_sl, bi_sl, slice_bits, ndim,
-                                   recomb) * (ar_sc * bi_sc)
-        p_ir = _matmul_from_slices(ai_sl, br_sl, slice_bits, ndim,
-                                   recomb) * (ai_sc * br_sc)
+        # matmul set (the cheap step).
+        p_rr = mm(ar_sl, ar_sc, br_sl, br_sc)
+        p_ii = mm(ai_sl, ai_sc, bi_sl, bi_sc)
+        p_ri = mm(ar_sl, ar_sc, bi_sl, bi_sc)
+        p_ir = mm(ai_sl, ai_sc, br_sl, br_sc)
         return p_rr - p_ii, p_ri + p_ir
 
-    as_sl, as_sc = sl_a(a_re + a_im)
-    bs_sl, bs_sc = sl_b(b_re + b_im)
-    p1 = _matmul_from_slices(ar_sl, br_sl, slice_bits, ndim,
-                             recomb) * (ar_sc * br_sc)
-    p2 = _matmul_from_slices(ai_sl, bi_sl, slice_bits, ndim,
-                             recomb) * (ai_sc * bi_sc)
-    p3 = _matmul_from_slices(as_sl, bs_sl, slice_bits, ndim,
-                             recomb) * (as_sc * bs_sc)
+    with jax.named_scope('ozaki_a_digits'):
+        as_sl, as_sc = sl_a(a_re + a_im)
+    with jax.named_scope('ozaki_b_digits'):
+        bs_sl, bs_sc = sl_b(b_re + b_im)
+    p1 = mm(ar_sl, ar_sc, br_sl, br_sc)
+    p2 = mm(ai_sl, ai_sc, bi_sl, bi_sc)
+    p3 = mm(as_sl, as_sc, bs_sl, bs_sc)
     return p1 - p2, p3 - p1 - p2
 
 
@@ -488,9 +484,8 @@ def ozaki_matmul_c_outer(p_re, p_im, b_re, b_im, c_re, c_im,
     B and C are converted to 22-bit int32 fixed point per column
     (tiny tensors), and D's bf16 digit slices are produced by native
     int32 outer-product arithmetic (12-bit factor splits, 30-bit top
-    words, round-half-up digit peel) -- the f64-emulated elementwise
-    build and slicing of the (K x J*C) product tensor, measured as the
-    dominant non-MXU cost of the flagship pipeline, disappears.
+    words, round-half-up digit peel) -- the f64 elementwise build and
+    slicing of the (K x J*C) product tensor disappears.
     Effective D precision is ~23 bits per factor (~25 of the product)
     below the column scales, matching the standard 24-bit path.
 
@@ -500,8 +495,8 @@ def ozaki_matmul_c_outer(p_re, p_im, b_re, b_im, c_re, c_im,
     caller falls back to :func:`ozaki_matmul_c` otherwise.
 
     Differentiable in reverse mode via a custom VJP: the digit
-    pipeline is round/int arithmetic (zero literal gradients, and the
-    Pallas kernel has no AD rule at all), so the backward pass applies
+    pipeline is round/int arithmetic (zero literal gradients), so the
+    backward pass applies
     the product rule on the MATHEMATICAL map (P, B, C) -> P @ D --
     dP = g D^H (an ozaki_matmul_c), dD = P^H g, then the row-wise
     outer-product chain dB[k,j] = sum_c dD[k,(jc)] conj(C[k,c]) and
@@ -509,14 +504,14 @@ def ozaki_matmul_c_outer(p_re, p_im, b_re, b_im, c_re, c_im,
     """
     return _ozaki_matmul_c_outer_impl(p_re, p_im, b_re, b_im, c_re,
                                       c_im, precision_bits, _mxu_mode(),
-                                      _recomb_mode(), _dword_mode())
+                                      _recomb_mode())
 
 
 def _ozaki_c_outer_fwd(p_re, p_im, b_re, b_im, c_re, c_im,
                        precision_bits):
     out = _ozaki_matmul_c_outer_impl(p_re, p_im, b_re, b_im, c_re,
                                      c_im, precision_bits, _mxu_mode(),
-                                     _recomb_mode(), _dword_mode())
+                                     _recomb_mode())
     return out, (p_re, p_im, b_re, b_im, c_re, c_im)
 
 
@@ -560,32 +555,13 @@ def _ozaki_c_outer_bwd(precision_bits, res, g):
 ozaki_matmul_c_outer.defvjp(_ozaki_c_outer_fwd, _ozaki_c_outer_bwd)
 
 
-def _dword_mode() -> str:
-    """How the factored path forms the D digit slices: 'pallas'
-    (default on TPU backends) the fused Pallas kernel
-    (ops/dword_pallas) when the shape supports it, 'xla' the unfused
-    op pipeline (and the only option off-TPU, where Mosaic cannot
-    lower).  Both are bit-exact against each other (the kernel runs
-    the identical int32 arithmetic).  Read eagerly per public call and
-    threaded as a static jit argument; override with
-    FF_TPU_OZAKI_DWORD."""
-    mode = os.environ.get('FF_TPU_OZAKI_DWORD')
-    if mode is not None:
-        return mode
-    # Mosaic lowers on TPU only; any other backend (CPU, GPU) takes
-    # the bit-identical XLA pipeline.
-    return 'pallas' if jax.default_backend() == 'tpu' else 'xla'
-
-
 @functools.partial(jax.jit,
-                   static_argnames=('precision_bits', 'mxu', 'recomb',
-                                    'dword'))
+                   static_argnames=('precision_bits', 'mxu', 'recomb'))
 def _ozaki_matmul_c_outer_impl(p_re, p_im, b_re, b_im, c_re, c_im,
                                precision_bits: int
                                = DEFAULT_PRECISION_BITS,
                                mxu: str = 'bf16',
-                               recomb: str = 'f64',
-                               dword: str = 'xla'):
+                               recomb: str = 'f64'):
     K = p_re.shape[-1]
     slice_bits, n_p = _slice_params(K, precision_bits, mxu)
     if slice_bits not in (5, 6, 7) or K <= 256:
@@ -600,23 +576,22 @@ def _ozaki_matmul_c_outer_impl(p_re, p_im, b_re, b_im, c_re, c_im,
     # -- which leaves D's TOP digit underfilled (~2 of 7 bits).  The
     # level-truncation cutoff is set by the A_top x D_bottom pairs, so
     # the P side must slice as deep as D (n_p = n_d = 5) or the
-    # skewed D digits cost ~4 bits of the pair budget (measured:
-    # 1.25e-9 flagship parity at n_p = 4 vs 8e-11 at 5).  A FULL-WIDTH
-    # 4-digit layout (28-bit window, 10 pairs instead of 15) was
-    # measured at 12.0 ms/pulse but 1.41e-9 parity -- 28-bit operand
-    # quantization alone busts the 1e-10 budget, so both sides stay at
-    # 5 digits and the speed comes from per-level concatenation in
-    # _matmul_from_slices instead.
+    # skewed D digits cost ~4 bits of the pair budget (1.25e-9
+    # flagship parity at n_p = 4 vs ~1e-10 at 5).  A FULL-WIDTH 4-digit
+    # layout (28-bit window, 10 pairs instead of 15) gives 1.41e-9
+    # parity -- 28-bit operand quantization alone busts the 1e-10
+    # budget, so both sides stay at 5 digits.
     n_d = -(-30 // slice_bits) if mxu == 'int8' else 30 // slice_bits
     if mxu == 'int8':
         n_p = max(n_p, n_d)
     digit_dtype = jnp.int8 if mxu == 'int8' else jnp.bfloat16
 
-    # P side: standard slicing (f32 assembly upstream)
-    pr_sl, pr_sc = _slice_fixed_point(p_re, -1, n_p, slice_bits, mxu)
-    pi_sl, pi_sc = _slice_fixed_point(p_im, -1, n_p, slice_bits, mxu)
-    ps_sl, ps_sc = _slice_fixed_point(p_re + p_im, -1, n_p, slice_bits,
-                                      mxu)
+    with jax.named_scope('ozaki_p_digits'):
+        # P side: standard slicing (f32 assembly upstream)
+        pr_sl, pr_sc = _slice_fixed_point(p_re, -1, n_p, slice_bits, mxu)
+        pi_sl, pi_sc = _slice_fixed_point(p_im, -1, n_p, slice_bits, mxu)
+        ps_sl, ps_sc = _slice_fixed_point(p_re + p_im, -1, n_p, slice_bits,
+                                          mxu)
 
     # factor side: shared 23-bit fixed point per column (one scale per
     # column covering both re and im so sums stay consistent; 23 bits
@@ -633,65 +608,14 @@ def _ozaki_matmul_c_outer_impl(p_re, p_im, b_re, b_im, c_re, c_im,
 
     zbr, zbi, eb = fix(b_re, b_im)
     zcr, zci, ec = fix(c_re, c_im)
-
-    M = p_re.shape[-2]
     J, Cc = b_re.shape[-1], c_re.shape[-1]
     ndim = p_re.ndim
     nbits = n_d * slice_bits
     e_bc = (eb[..., :, None] + ec[..., None, :]).reshape(
         *eb.shape[:-1], J * Cc)
-
-    from . import dword_pallas
-    if (dword == 'pallas' and mxu == 'int8'
-            and dword_pallas.supported(zbr.shape[0], J, Cc, zbr.ndim)):
-        # fused Pallas kernel: identical int32 split/word/shift/peel
-        # arithmetic, but the (K, J*Cc) word lattices of the three
-        # Gauss components never leave VMEM (ops/dword_pallas)
-        digits, dshifts = dword_pallas.dword_digits(
-            zbr, zbi, zcr, zci, n_d=n_d, slice_bits=slice_bits)
-        outs = []
-        for t in range(3):
-            d_sl = [digits[t, s] for s in range(n_d)]
-            d_sc = jnp.exp2((e_bc - 28 - dshifts[t]
-                             + (nbits - slice_bits)).astype(jnp.float64)
-                            )[..., None, :]
-            outs.append((d_sl, d_sc))
-        return _outer_contract(pr_sl, pr_sc, pi_sl, pi_sc, ps_sl, ps_sc,
-                               outs, slice_bits, ndim, recomb)
-
-    sb1, sb0 = _split12(zbr)
-    si1, si0 = _split12(zbi)
-    sc1, sc0 = _split12(zcr)
-    sd1, sd0 = _split12(zci)
-
-    # W ~= (zB zC)/2^18; complex components via 4 outer words
-    w_rr = _outer_word(sb1, sb0, sc1, sc0)
-    w_ii = _outer_word(si1, si0, sd1, sd0)
-    w_ri = _outer_word(sb1, sb0, sd1, sd0)
-    w_ir = _outer_word(si1, si0, sc1, sc0)
-    d_comps = (w_rr - w_ii,                 # Dr * 2^(28 - eB - eC)
-               w_ri + w_ir,                 # Di
-               (w_rr - w_ii) + (w_ri + w_ir))   # Dr + Di (Gauss)
-
     outs = []
-    for w in d_comps:
-        w = w.reshape(*w.shape[:-2], J * Cc)
-        # per-column normalization to EXACTLY the digit budget: columns
-        # below it shift left; columns ABOVE it (the word carries up to
-        # ~30 bits, the 4x7-bit budget only 28) must shift RIGHT with
-        # rounding, or the top digit of the peel overflows int8 and
-        # silently wraps.  The rounded right shift costs <= 0.5 ulp of
-        # the 28-bit window -- relative column precision is uniform.
-        colmax = jnp.max(jnp.abs(w), axis=-2, keepdims=False)
-        # bit length via float log2 (exact for int32 magnitudes)
-        e_w = jnp.ceil(jnp.log2(jnp.maximum(colmax, 1).astype(
-            jnp.float64))).astype(jnp.int32)
-        shift = min(nbits, 30) - 1 - e_w       # signed
-        lshift = jnp.maximum(shift, 0)[..., None, :]
-        rshift = jnp.maximum(-shift, 0)[..., None, :]
-        half = (jnp.int32(1) << rshift) >> 1   # 0 when rshift == 0
-        v = ((w << lshift) + half) >> rshift
-        d_sl = _peel_int(v, n_d, slice_bits, digit_dtype)
+    for d_sl, shift in _d_word_digits(zbr, zbi, zcr, zci, n_d, slice_bits,
+                                      digit_dtype):
         # scale: D = v * 2^(eB + eC - 28 - shift); digit expansion
         # v = 2^(nbits - slice_bits) * sum_s d_s 2^(-slice_bits s)
         d_sc = jnp.exp2((e_bc - 28 - shift
@@ -699,14 +623,7 @@ def _ozaki_matmul_c_outer_impl(p_re, p_im, b_re, b_im, c_re, c_im,
                         )[..., None, :]
         outs.append((d_sl, d_sc))
 
-    return _outer_contract(pr_sl, pr_sc, pi_sl, pi_sc, ps_sl, ps_sc,
-                           outs, slice_bits, ndim, recomb)
-
-
-def _outer_contract(pr_sl, pr_sc, pi_sl, pi_sc, ps_sl, ps_sc, outs,
-                    slice_bits, ndim, recomb):
-    """Slice matmuls + Gauss recombination of the factored path
-    (shared by the XLA and Pallas D-side digit producers)."""
+    # slice matmuls + Gauss recombination
     def mm(a_sl, a_sc, d):
         d_sl, d_sc = d
         n = min(len(a_sl), len(d_sl))
@@ -714,11 +631,62 @@ def _outer_contract(pr_sl, pr_sc, pi_sl, pi_sc, ps_sl, ps_sc, outs,
                                   recomb)
         return out * a_sc * d_sc
 
-    p1 = mm(pr_sl, pr_sc, outs[0])
-    p2 = mm(pi_sl, pi_sc, outs[1])
-    p3 = mm(ps_sl, ps_sc, outs[2])
+    with jax.named_scope('ozaki_slice_matmuls'):
+        p1 = mm(pr_sl, pr_sc, outs[0])
+        p2 = mm(pi_sl, pi_sc, outs[1])
+        p3 = mm(ps_sl, ps_sc, outs[2])
     # Gauss: re = Pr Dr - Pi Di; im = (Pr+Pi)(Dr+Di) - p1 - p2
     return p1 - p2, p3 - p1 - p2
+
+
+def _d_word_digits(zbr, zbi, zcr, zci, n_d: int, slice_bits: int,
+                   digit_dtype=jnp.int8):
+    """Digit slices of the three Gauss components (Dr, Di, Dr + Di) of
+    the row-wise outer product D[k, (j c)] = B[k, j] * C[k, c], from the
+    23-bit int32 fixed-point factors, in native int32 arithmetic.
+
+    Returns ``[(digits, shift)] * 3``: *digits* the n_d slices (high
+    first) of each component's per-column normalized top-30-bit word,
+    *shift* the per-column left shift applied to it (signed)."""
+    with jax.named_scope('ozaki_d_digits'):
+        J, Cc = zbr.shape[-1], zcr.shape[-1]
+        nbits = n_d * slice_bits
+        sb1, sb0 = _split12(zbr)
+        si1, si0 = _split12(zbi)
+        sc1, sc0 = _split12(zcr)
+        sd1, sd0 = _split12(zci)
+
+        # W ~= (zB zC)/2^18; complex components via 4 outer words
+        w_rr = _outer_word(sb1, sb0, sc1, sc0)
+        w_ii = _outer_word(si1, si0, sd1, sd0)
+        w_ri = _outer_word(sb1, sb0, sd1, sd0)
+        w_ir = _outer_word(si1, si0, sc1, sc0)
+        d_comps = (w_rr - w_ii,                 # Dr * 2^(28 - eB - eC)
+                   w_ri + w_ir,                 # Di
+                   (w_rr - w_ii) + (w_ri + w_ir))   # Dr + Di (Gauss)
+
+        outs = []
+        for w in d_comps:
+            w = w.reshape(*w.shape[:-2], J * Cc)
+            # per-column normalization to EXACTLY the digit budget:
+            # columns below it shift left; columns ABOVE it (the word
+            # carries up to ~30 bits, the 4x7-bit budget only 28) must
+            # shift RIGHT with rounding, or the top digit of the peel
+            # overflows int8 and silently wraps.  The rounded right
+            # shift costs <= 0.5 ulp of the 28-bit window -- relative
+            # column precision is uniform.
+            colmax = jnp.max(jnp.abs(w), axis=-2, keepdims=False)
+            # bit length via float log2 (exact for int32 magnitudes)
+            e_w = jnp.ceil(jnp.log2(jnp.maximum(colmax, 1).astype(
+                jnp.float64))).astype(jnp.int32)
+            shift = min(nbits, 30) - 1 - e_w       # signed
+            lshift = jnp.maximum(shift, 0)[..., None, :]
+            rshift = jnp.maximum(-shift, 0)[..., None, :]
+            half = (jnp.int32(1) << rshift) >> 1   # 0 when rshift == 0
+            v = ((w << lshift) + half) >> rshift
+            outs.append((_peel_int(v, n_d, slice_bits, digit_dtype),
+                         shift))
+        return outs
 
 
 def _ozaki_c_fwd(a_re, a_im, b_re, b_im, precision_bits):
@@ -742,7 +710,10 @@ def _ozaki_c_bwd(precision_bits, res, g):
     db_re, db_im = _ozaki_matmul_c_impl(at_re, -at_im, g_re, g_im,
                                         precision_bits, cmul, mxu,
                                         recomb)
-    return da_re, da_im, db_re, db_im
+    # the products come back in f64; cotangents take their primal's
+    # dtype (f32 P operands on the deep path)
+    return (da_re.astype(a_re.dtype), da_im.astype(a_im.dtype),
+            db_re.astype(b_re.dtype), db_im.astype(b_im.dtype))
 
 
 ozaki_matmul_c.defvjp(_ozaki_c_fwd, _ozaki_c_bwd)

@@ -3,12 +3,12 @@
 The reference exposes analytic filter-function gradients
 (/root/reference/filter_functions/gradient.py:559-676) for external
 optimizers to consume; here the full optimization loop itself runs on
-the TPU: an optax optimizer stepped inside ``lax.scan``, with the
+the accelerator: an optax optimizer stepped inside ``lax.scan``, with the
 pulse batch sharded over the mesh 'batch' axis and the frequency
 integral sharded over 'omega'.  Gradients flow through the whole
 pipeline (diagonalization, propagator scan, omega-lattice contraction)
 via ``jax.grad`` -- the custom eigh JVP and the Ozaki custom VJP keep
-them exact on the TPU backend.
+them exact.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ Parallel axes:
   omega axis splits the dominant (G x n_omega x d^2 x d^2) contraction
   across devices with zero communication.  The final frequency
   integral is a sum over the sharded axis, which GSPMD lowers to a
-  single ``psum`` over ICI.
+  single ``psum`` (an all-reduce over NVLink on a GPU host).
 * ``batch`` -- a batch of pulses (e.g. randomized-benchmarking
   sequences or optimal-control candidates) sharded across devices;
   fully independent.

@@ -1,4 +1,4 @@
-"""Superoperator utilities (TPU-native rebuild of
+"""Superoperator utilities (JAX rebuild of
 /root/reference/filter_functions/superoperator.py).
 
 Liouville representations of unitaries in a hermitian basis are real,

@@ -28,7 +28,6 @@ MD_CONFIG = {'codehilite': {'guess_lang': False}}
 
 GUIDES = [
     ('user_guide.md', 'User guide'),
-    ('performance.md', 'Performance guide'),
     ('migrating_from_filter_functions.md', 'Migrating from filter_functions'),
     ('qutip_integration.md', 'QuTiP integration'),
 ]
@@ -111,13 +110,12 @@ MathJax = {{ tex: {{ inlineMath: [['$', '$'], ['\\\\(', '\\\\)']] }},
 INDEX_MD = """\
 # filter_functions_tpu
 
-A TPU-native JAX framework for computing generalized filter functions
-of quantum control pulses — a from-scratch rebuild of the
+A JAX framework for computing generalized filter functions of quantum
+control pulses on an accelerator — a from-scratch rebuild of the
 capabilities of [qutech/filter_functions](
-https://github.com/qutech/filter_functions) designed for TPU
-hardware: split-complex float64 linear algebra, log-depth propagator
-scans, MXU-resident Ozaki contractions, and frequency/batch sharding
-over device meshes.
+https://github.com/qutech/filter_functions): split-complex float64
+linear algebra, log-depth propagator scans, float64 GEMM contractions,
+and frequency/batch sharding over device meshes.
 
 Start with the **[getting started notebook](nb_getting_started.html)**
 or the **[user guide](user_guide.html)**; coming from the reference
@@ -131,9 +129,9 @@ migrating_from_filter_functions.html)**.
   second order, infidelities, decay amplitudes, frequency shifts,
   cumulant functions, error transfer matrices, and analytic
   gradients — validated element-for-element against the reference.
-- TPU-first numerics: every hot contraction rides the MXU via an
-  error-free bf16/int8 slice decomposition (`ops.ozaki`); see the
-  [performance guide](performance.html) for measured speedups.
+- Accelerator numerics: the hot control-matrix contraction runs as
+  float64 GEMMs on the GPU's tensor cores, with an error-free int8
+  digit-slice emulation (`ops.ozaki`) as an alternative mode.
 - `jax.grad` through the whole pipeline, plus the reference's
   closed-form gradients as a cross-check.
 - Multi-chip scaling over `jax.sharding` meshes with a single

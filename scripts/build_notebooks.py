@@ -3,7 +3,7 @@
 The reference ships its documentation as executable Sphinx notebooks
 (/root/reference/doc/source/examples/*.ipynb); this script is the
 repo's analog of that corpus: each notebook below mirrors one
-reference notebook topic-for-topic, written against the TPU-native
+reference notebook topic-for-topic, written against the library's
 API.  Notebooks are authored programmatically (so they stay in sync
 with the API and are regenerable in CI) and executed on the host CPU
 backend before being written, so the committed .ipynb files carry
@@ -26,7 +26,7 @@ OUT = REPO / 'doc' / 'notebooks'
 
 # Shared first cell: locate the package from wherever the notebook is
 # opened, and pin the host CPU backend (tutorial-scale problems are
-# latency-bound; see doc/performance.md for when the TPU pays off).
+# latency-bound).
 BOOTSTRAP = """\
 import sys
 from pathlib import Path
@@ -37,9 +37,9 @@ sys.path.insert(0, str(root))
 
 import jax
 
-# The tutorials run on the host CPU: at these problem sizes a remote
-# accelerator round trip costs more than the math.  On a TPU runtime,
-# drop this line and see doc/performance.md for the batched fused APIs
+# The tutorials run on the host CPU: at these problem sizes an
+# accelerator round trip costs more than the math.  On a GPU, drop
+# this line and use the batched fused APIs (the `functional` module)
 # that make the accelerator pay off.
 jax.config.update('jax_platforms', 'cpu')
 
@@ -186,7 +186,7 @@ fig, ax = plotting.plot_infidelity_convergence(
 - `periodic_driving.ipynb` -- filter functions of $10^4$-fold repeated
   pulses in closed form.
 - `quantum_fourier_transform.ipynb` -- a full 4-qubit algorithm.
-- `doc/performance.md` -- the TPU execution model and the batched
+- `PERF.md` -- measured performance on the GPU, and the batched
   fused APIs (`functional.batched_infidelity` evaluates hundreds of
   pulses in one device call)."""),
 ]
@@ -827,12 +827,11 @@ print(f'   total: {infid.sum():.3e}')"""),
     md("""\
 ## Scaling up
 
-This pulse is the benchmark configuration: on a TPU chip the batched
-pipeline (`functional` module) evaluates filter function + infidelity
-for a *batch* of QFT-sized pulses at ~19 ms per pulse with 1000
-frequencies -- two orders of magnitude faster than the reference
-NumPy implementation of the same computation (see `bench.py` and
-`doc/performance.md`).  The same code path, `vmap`ped and `pjit`
+This pulse is the benchmark configuration: on one NVIDIA H100 (700 W)
+the batched pipeline (`functional` module) evaluates filter function +
+infidelity for a *batch* of QFT-sized pulses at about 2 ms per pulse
+with 1000 frequencies (see `bench.py`, `chip_smoke.py` and
+`PERF.md`).  The same code path, `vmap`ped and `pjit`
 sharded over a device mesh, scales across chips
 (`parallel/sharding.py`)."""),
 ]

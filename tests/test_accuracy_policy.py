@@ -2,12 +2,12 @@
 depth-adaptive Ozaki accuracy policy.
 
 The deep-truncation defaults (numeric._ctrlmat_contract: f32 P
-assembly, 23-bit fixed-point factored D, reduced truncation for
-1024 < K <= 16384) were tuned on the flagship QFT + 1/f bench; this
-suite
+assembly, reduced truncation for 1024 < K <= 16384; the escalation
+guards the opt-in 23-bit fixed-point factored D) were tuned on the
+flagship QFT + 1/f bench; this suite
 
 1. sweeps seeded random pulses x spectra x dimensions through the
-   SAME policy decisions the TPU takes (FF_TPU_CONTRACT=ozaki runs the
+   SAME policy decisions the ozaki mode takes (FF_TPU_CONTRACT=ozaki runs the
    identical int8-digit/int32-accumulator decomposition on any
    backend) and pins the worst-case infidelity parity
    distribution-wide, and
@@ -27,8 +27,7 @@ parity <= 5e-7; asserted here at HALF that (2.5e-7) for every
 (d, seed, spectrum) combination, against the natively-f64 einsum path
 (itself pinned against the reference at ~1e-13 by
 tests/test_precision.py).  Measured worst case: 5.5e-8 relative
-(d=8, 1/f spectrum) -- a 9x margin, documented in
-doc/performance.md.
+(d=8, 1/f spectrum) -- a 9x margin.
 """
 import numpy as np
 import pytest
@@ -80,7 +79,7 @@ def test_deep_policy_parity_ensemble(monkeypatch):
             arrays[d, seed] = rand_pulse_arrays(d, G, n_cops=2, n_nops=2,
                                                 local_rng=rng)
 
-    # Pass 1: the TPU production path (Ozaki int8 digits, deep policy,
+    # Pass 1: the ozaki path (Ozaki int8 digits, deep policy,
     # escalation at its default threshold -- which must NOT fire here)
     monkeypatch.setenv('FF_TPU_CONTRACT', 'ozaki')
     _clear_ctrlmat_caches()
@@ -144,12 +143,11 @@ def _deep_batch(d=4, G=128, batch=2, n_omega=32):
 
 
 def test_batched_fast_path_carries_no_escalation(monkeypatch):
-    """Round-4 flagship regression pin (VERDICT r4 item 1): the Ozaki
-    escalation decision in ``batched_infidelity`` must be ONE scalar
+    """Regression pin: the Ozaki escalation decision in ``batched_infidelity`` must be ONE scalar
     ``lax.cond`` hoisted outside the vmap -- never a per-pulse cond
     under the vmap, which lowers to a both-branches ``select`` and
-    makes every healthy batched call pay the full-precision recompute
-    (BENCH_r03 9.9 -> BENCH_r04 24.3 ms/pulse).
+    makes every healthy batched call pay the full-precision
+    recompute.
 
     Pins, at a deep-policy shape (K = G d^2 = 2048):
     1. the traced program contains exactly ONE cond primitive,
@@ -164,6 +162,7 @@ def test_batched_fast_path_carries_no_escalation(monkeypatch):
     from filter_functions_tpu import functional
 
     monkeypatch.setenv('FF_TPU_CONTRACT', 'ozaki')
+    monkeypatch.setenv('FF_TPU_OZAKI_FACTORED', '1')
     pb, spectrum, omega = _deep_batch()
 
     # a FRESH callable per trace: jax caches traces on the function
@@ -198,7 +197,7 @@ def test_batched_fast_path_carries_no_escalation(monkeypatch):
 
 @pytest.mark.slow
 def test_batched_deep_policy_parity_ensemble(monkeypatch):
-    """VERDICT r4 item 7: the randomized deep-policy ensemble through
+    """The randomized deep-policy ensemble through
     the PRODUCTION batched entry points -- ``batched_infidelity`` and
     ``batched_error_transfer_matrix`` -- rather than the object API, so
     the batch-hoisted escalation machinery ('stat' + scalar cond) is
@@ -206,7 +205,7 @@ def test_batched_deep_policy_parity_ensemble(monkeypatch):
 
     For each deep-policy shape (K = G d^2 = 2048) a batch of seeded
     random coefficient/dt draws over shared operators runs once under
-    the TPU production policy (FF_TPU_CONTRACT=ozaki) and once under
+    the ozaki policy (FF_TPU_CONTRACT=ozaki) and once under
     the native f64 oracle, through the same batched executable.
     Criterion as in test_deep_policy_parity_ensemble: relative parity
     <= 2.5e-7 (half the flagship-scale 1e-10-absolute equivalent) for
@@ -281,7 +280,7 @@ def test_batched_deep_policy_parity_ensemble(monkeypatch):
 
 @pytest.mark.slow
 def test_batched_escalation_on_cancellation_pathology(monkeypatch):
-    """VERDICT r4 item 7: the CPMG-300 cancellation pathology through
+    """The CPMG-300 cancellation pathology through
     the PRODUCTION batched entry point.  With a low-frequency-weighted
     spectrum (S ~ 1/w^2, concentrating the integral where the train
     refocuses by ~11 orders), the unescalated fast path misses at
@@ -314,6 +313,7 @@ def test_batched_escalation_on_cancellation_pathology(monkeypatch):
     monkeypatch.setenv('FF_TPU_CONTRACT', 'native')
     want = run()
     monkeypatch.setenv('FF_TPU_CONTRACT', 'ozaki')
+    monkeypatch.setenv('FF_TPU_OZAKI_FACTORED', '1')
     got_default = run()
     monkeypatch.setenv('FF_TPU_OZAKI_ESCALATE_TOL', '1e30')
     got_fast = run()
@@ -352,6 +352,7 @@ def test_escalation_on_cancellation_pathology(monkeypatch):
         return np.asarray(pulse.get_filter_function(omega).to_numpy())
 
     monkeypatch.setenv('FF_TPU_CONTRACT', 'ozaki')
+    monkeypatch.setenv('FF_TPU_OZAKI_FACTORED', '1')
     f_default = build_ff()                      # escalation on (default)
     monkeypatch.setenv('FF_TPU_OZAKI_ESCALATE_TOL', '1e30')
     f_fast = build_ff()                         # escalation disabled

@@ -825,7 +825,7 @@ class TestExplicitCacheSeeding:
 class TestSecondOrderFactoredRoute:
     """The separable-table (factored) route of the K2 lattice
     (FF_TPU_SO_FACTORED=1) must agree with the default lattice route;
-    cf. numeric._second_order_factored_single and doc/performance.md.
+    cf. numeric._second_order_factored_single.
     The factored route's divided-difference branch is exercised by an
     omega grid containing exact and near hits of omega = -Omega_mn."""
 

@@ -147,7 +147,7 @@ class TestLinalg:
 
     @pytest.mark.parametrize('d', [2, 4, 6])
     def test_eigh_embedded_matches(self, d):
-        """The TPU real-embedding path must agree with the native path
+        """The real-embedding path must agree with the native path
         up to degenerate-subspace gauge; check the invariants."""
         h = randc(3, d, d)
         h = h + h.conj().swapaxes(-1, -2)
@@ -267,7 +267,7 @@ class TestOzaki:
 
 class TestExpmReal:
     """Taylor scaling-and-squaring matrix exponential vs scipy
-    (jax.scipy's Pade form needs an f64 LU the TPU compiler lacks)."""
+    (solve-free, unlike jax.scipy's Pade form)."""
 
     @pytest.mark.parametrize('scale', [1e-8, 1e-3, 1.0, 10.0])
     @pytest.mark.parametrize('n', [4, 16, 64])
@@ -344,9 +344,9 @@ def test_ozaki_cmul_variants_agree(monkeypatch):
 
 
 class TestOzakiMxuModes:
-    """FF_TPU_OZAKI_MXU selects the MXU element type for the digit
-    slice products: 'int8' (7-bit digits, exact int32 accumulation,
-    ~2.8x bf16 throughput -- the default) or 'bf16'.  Both must meet
+    """FF_TPU_OZAKI_MXU selects the element type of the digit slice
+    products: 'int8' (7-bit digits, exact int32 accumulation -- the
+    default) or 'bf16'.  Both must meet
     the same truncation budget, and the toggle must take effect per
     call (it is resolved eagerly and passed as a static argument)."""
 
@@ -458,14 +458,12 @@ class TestOzakiRecomb:
         assert np.abs(got - want).max() / np.abs(want).max() < 2**-44
 
 
-class TestDwordPallas:
-    """ops/dword_pallas: the fused Pallas D-digit kernel must be
-    BIT-EXACT against the unfused XLA arithmetic of
-    _ozaki_matmul_c_outer_impl (same int32 split/word/shift/peel
-    expressions).  On CPU the kernel runs in interpret mode; on TPU
-    the compiled kernel is the factored path's default D producer."""
+class TestDWordDigits:
+    """ops/ozaki._d_word_digits, the int32 D-digit pipeline of the
+    factored contraction, must be BIT-EXACT against a plain NumPy
+    transcription of the same split/word/shift/peel arithmetic."""
 
-    def _xla_reference(self, zbr, zbi, zcr, zci, n_d, slice_bits):
+    def _numpy_reference(self, zbr, zbi, zcr, zci, n_d, slice_bits):
         from filter_functions_tpu.ops import ozaki
         K, J = zbr.shape
         C = zcr.shape[1]
@@ -511,63 +509,33 @@ class TestDwordPallas:
             shifts.append(shift)
         return np.stack(digits), np.stack(shifts)
 
-    def test_kernel_bit_exact(self):
-        from filter_functions_tpu.ops import dword_pallas as dp
-        if not dp._HAVE_PALLAS:
-            pytest.skip('pallas unavailable')
-        K, J, C = 512, 3, 128
-        assert dp.supported(K, J, C, 2)
+    @pytest.mark.parametrize('K, J, C, n_d, slice_bits', [
+        (512, 3, 128, 4, 7),
+        (2048, 18, 16, 5, 6),
+        (3328, 18, 64, 5, 7),
+    ])
+    def test_digits_bit_exact(self, K, J, C, n_d, slice_bits):
+        from filter_functions_tpu.ops import ozaki
         local = np.random.default_rng(16)
         mk = lambda shape: local.integers(-2**23, 2**23, shape,
                                           dtype=np.int32)
         zbr, zbi, zcr, zci = mk((K, J)), mk((K, J)), mk((K, C)), \
             mk((K, C))
-        interpret = jax.default_backend() == 'cpu'
-        digits, shifts = dp.dword_digits(
+        outs = ozaki._d_word_digits(
             jnp.asarray(zbr), jnp.asarray(zbi), jnp.asarray(zcr),
-            jnp.asarray(zci), n_d=4, slice_bits=7, interpret=interpret)
-        want_d, want_s = self._xla_reference(zbr, zbi, zcr, zci, 4, 7)
-        assert np.array_equal(np.asarray(shifts), want_s)
-        assert np.array_equal(np.asarray(digits), want_d)
-
-    def test_supported_gate(self):
-        from filter_functions_tpu.ops import dword_pallas as dp
-        if not dp._HAVE_PALLAS:
-            pytest.skip('pallas unavailable')
-        assert not dp.supported(3328, 18, 100, 2)     # C not lane-tiled
-        assert not dp.supported(3328, 18, 256, 3)     # batched factors
-        assert not dp.supported(7, 18, 256, 2)        # no K chunking
-        assert dp.supported(3328, 18, 256, 2)
-
-    @pytest.mark.skipif(jax.default_backend() != 'tpu',
-                        reason='pins the COMPILED Mosaic kernel, not '
-                               'interpret mode (bench.py emits the '
-                               'same proof into BENCH_r*.json)')
-    def test_outer_contraction_bit_exact_on_device(self):
-        """End-to-end on-device pin: the full factored contraction
-        (ozaki._ozaki_matmul_c_outer_impl) produces bit-identical f64
-        output with dword='pallas' (compiled Mosaic) and dword='xla'
-        at a flagship-shaped deep reduction."""
-        from filter_functions_tpu.ops import ozaki
-        local = np.random.default_rng(42)
-        M, K, J, Cc = 64, 2048, 3, 256
-        args = [local.standard_normal(s) * 10.0**local.integers(-3, 3)
-                for s in ((M, K), (M, K), (K, J), (K, J), (K, Cc),
-                          (K, Cc))]
-        outs = {}
-        for mode in ('pallas', 'xla'):
-            outs[mode] = ozaki._ozaki_matmul_c_outer_impl(
-                *map(np.asarray, args), ozaki.DEEP_PRECISION_BITS,
-                'int8', ozaki._recomb_mode(), mode)
-        for a, b in zip(outs['pallas'], outs['xla']):
-            assert np.array_equal(np.asarray(a), np.asarray(b))
+            jnp.asarray(zci), n_d, slice_bits)
+        want_d, want_s = self._numpy_reference(zbr, zbi, zcr, zci, n_d,
+                                               slice_bits)
+        for t, (digits, shift) in enumerate(outs):
+            assert np.array_equal(np.asarray(shift), want_s[t])
+            assert np.array_equal(np.stack([np.asarray(d)
+                                            for d in digits]), want_d[t])
 
 
 class TestOzakiOuterGrad:
     """ozaki_matmul_c_outer is reverse-mode differentiable via a
     custom VJP (the digit pipeline is round/int arithmetic with zero
-    literal gradients, and the Pallas kernel has no AD rule): the
-    backward pass applies the product rule on (P, B, C) -> P @ D and
+    literal gradients): the backward pass applies the product rule on (P, B, C) -> P @ D and
     must match finite differences."""
 
     def test_grad_matches_finite_diff(self):

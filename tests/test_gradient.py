@@ -1,7 +1,7 @@
 """Gradient tests: the analytic (closed-form) infidelity derivative vs
 central finite differences, vs the reference implementation, and vs
-jax.grad through the whole split-complex pipeline (the TPU-native bonus
-path the reference cannot offer)."""
+jax.grad through the whole split-complex pipeline (the autodiff path
+the reference cannot offer)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -216,16 +216,28 @@ class TestJaxGrad:
     def test_jax_grad_through_deep_factored_contraction(self,
                                                         monkeypatch):
         """jax.grad through the DEEP Ozaki regime (K = G d^2 > 1024:
-        int32-factored D, Pallas/XLA digit pipeline) must agree with
+        int32-factored D digit pipeline) must agree with
         the grad of the native-einsum contraction -- the factored path
         is round/int arithmetic whose literal gradient is zero, so
         this pins the ozaki_matmul_c_outer custom VJP inside the full
         control-matrix pipeline."""
+        self._deep_ozaki_grad_parity(monkeypatch, factored='1')
+
+    def test_jax_grad_through_deep_contraction(self, monkeypatch):
+        """The same through the default deep Ozaki path (f32 P, f64 D):
+        the ozaki_matmul_c custom VJP hands back cotangents in each
+        operand's own dtype."""
+        self._deep_ozaki_grad_parity(monkeypatch, factored='0')
+
+    @staticmethod
+    def _deep_ozaki_grad_parity(monkeypatch, factored):
         arrays = rand_pulse_arrays(4, 80, n_cops=2, n_nops=1)
         c_opers, c_ids, c_coeffs, n_opers, n_ids, n_coeffs, dt = arrays
         omega = np.linspace(0.1, 10, 11)
         basis = ff.Basis.ggm(4)
         assert 80 * 16 > 1024      # deep regime
+
+        monkeypatch.setenv('FF_TPU_OZAKI_FACTORED', factored)
 
         def loss(cc, mode):
             monkeypatch.setenv('FF_TPU_CONTRACT', mode)
